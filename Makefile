@@ -1,13 +1,16 @@
-# Convenience targets. TPU targets assume the ambient JAX TPU platform;
-# test targets force the hermetic CPU backend via tests/conftest.py.
+# Convenience targets. Bench targets run on the default JAX platform (a
+# GPU); test targets force the hermetic CPU backend via tests/conftest.py.
 
-.PHONY: test test-fast bench bench-stream bench-micro middlebury dryrun lint
+.PHONY: test test-fast smoke bench bench-stream bench-micro middlebury dryrun lint
 
 test:
 	python -m pytest tests/ -q
 
 test-fast:
 	python -m pytest tests/ -q -m "not slow"
+
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

@@ -1,4 +1,4 @@
-"""gpu_stereo_matching_tpu — a TPU-native dense stereo depth engine.
+"""gpu_stereo_matching_tpu — a dense stereo depth engine for NVIDIA GPUs.
 
 A from-scratch JAX / XLA / Pallas / pjit framework with the capabilities of the
 reference CUDA/C++ project ``ningw42/GPU_Stereo_Matching``:
@@ -13,12 +13,12 @@ reference CUDA/C++ project ``ningw42/GPU_Stereo_Matching``:
   post-filter, and an optional second iteration with left-right consistency
   and joint color+depth re-segmentation (reference: ``STMatching/``).
 
-Design is TPU-first, not a port: cost volumes live in ``(D, H, W)`` /
-``(B, D, H, W)`` layouts with W on the 128-lane axis, aggregation uses
-prefix-sum box filters instead of per-pixel window loops, the hot path is a
-fused Pallas kernel, the segment-tree filter is reformulated as parallel tree
-scans, and scaling is expressed with ``jax.sharding.Mesh`` + ``shard_map``
-halo exchange instead of CUDA grids.
+Design is data-parallel, not a port: cost volumes live in ``(D, H, W)`` /
+``(B, D, H, W)`` layouts, aggregation uses prefix-sum box filters instead of
+per-pixel window loops, the hot path is a fused Pallas (Triton) kernel that
+never writes a cost volume, the segment-tree filter is reformulated as
+parallel tree scans, and scaling is expressed with ``jax.sharding.Mesh`` +
+``shard_map`` halo exchange instead of CUDA grids.
 """
 
 __version__ = "0.1.0"

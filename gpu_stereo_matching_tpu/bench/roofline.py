@@ -1,104 +1,95 @@
 """Roofline accounting for the hot kernels (north-star "speed of light").
 
-For each hot kernel this module counts the work analytically from the
-kernel's own structure (itemized below — estimates carry the itemization,
-not a hand-wave) and compares against TPU v5e peaks:
-
-* HBM bandwidth: 8.1e11 B/s (v5e, public spec).
-* VPU integer/f32 throughput: 8 sublanes × 128 lanes × 4 ALUs × 0.94 GHz
-  ≈ 3.85e12 elementwise ops/s (the scaling-book VPU model; the MXU is
-  irrelevant here — none of these kernels contract).
+Work is counted analytically from each kernel's own structure (itemized
+below) and set against the peaks of the device it ran on, from
+:data:`PEAKS`, which is keyed by ``jax.Device.device_kind``. A device that
+is not in the table is an error, not a default.
 
 Kernels covered:
 
-1. **Fused packed-pair SAD+WTA** (`kernels/sad_wta.py`): per pixel per
-   disparity *pair*, on the lane-padded slab: rotate(1) + diffs/pack(6) +
-   vertical sliding sum(5, on the (tile+2r)-row halo ≈ 1.1×) + masks(6) +
-   horizontal sliding sum(5) + unpack/keys/WTA(8) ≈ 29 int32 VPU ops
-   (±15%: selects and the halo factor depend on tile shape). HBM: two u8
-   slabs in (halo re-read per tile), one u8 row out.
-2. **Offset-sweep remap** (`kernels/remap.py`): per plan step, the kernel
-   touches every tile pixel once (roll + bounds select + accumulate ≈ 4
-   ops); steps come from the actual plan, so the count is exact per rig.
-3. **Stride-bucket ST filter** (`tree/stride.py`): dominated by XLA row
-   gathers — modeled from the *measured* ~17 ns/row (in-graph gather of
-   64-f32 rows, bench/micro round-3 measurement) against the 0.30 ns a
-   240 B row would cost at HBM peak; plus 2 affine-scan passes
-   (≈ 6 ops/element/step) over the bucketed layout.
+1. **Fused SAD+WTA** (`kernels/sad_wta.py`): per output pixel, per
+   disparity and per output row step the program evaluates four clipped
+   AD costs (entering/leaving row × entering/leaving column) at ≈10 int32
+   operations each (address, three masks, load, widen, subtract, abs, two
+   selects), updates the running sum (2), takes a prefix sum along the
+   strip (≈2·log₂(block_w)), packs and reduces the key (4): ≈58 int32
+   operations. Device memory sees each u8 image once and one int32 per
+   output pixel; the shifted re-reads are served by L1/L2.
+2. **Stride-bucket ST filter** (`tree/stride.py`): XLA row gathers, with
+   the bytes every gathered row moves, plus 2 affine-scan passes (≈6
+   operations per element per step) over the bucketed layout.
 
-Run: ``python -m gpu_stereo_matching_tpu.bench.roofline`` (analytic, uses
-recorded timings) or ``--live`` to re-measure the fused kernel on the
-current backend first.
+Run: ``python -m gpu_stereo_matching_tpu.bench.roofline --live`` measures
+the fused kernel on the current GPU first; otherwise pass the measured
+times and the device kind.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
-import numpy as np
+# Published peaks, dense, without sparsity. H100 SXM: NVIDIA H100 data
+# sheet (3.35 TB/s HBM3, 67 TFLOP/s FP32 = 2 operations per FMA on 128
+# FP32 lanes per SM, 900 GB/s NVLink = 450 GB/s each way). The Hopper
+# white paper gives 64 INT32 lanes per SM, half the FP32 lanes, so the
+# int32 rate is a quarter of the FP32 FLOP figure.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "f32_ops_per_s": 67e12,
+        "int32_ops_per_s": 67e12 / 4,
+        "link_bytes_per_s": 450e9,
+        "link": "NVLink (each way)",
+        "source": "NVIDIA H100 SXM data sheet; Hopper architecture white paper",
+    },
+}
 
-V5E_HBM_BPS = 8.1e11
-V5E_VPU_OPS = 8 * 128 * 4 * 0.94e9  # ≈ 3.85e12 elementwise ops/s
-GATHER_NS_PER_ROW = 17.0  # measured: in-graph XLA gather, 64-f32 rows
+
+def device_peaks(device_kind: str) -> dict:
+    """Peak rates of ``device_kind``; raises for a device not in the table."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates recorded for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
+
+
+def sad_wta_ops_per_pixel_disparity(radius: int, block_w: int = 64) -> float:
+    """int32 operations per (output pixel, disparity) of the fused kernel."""
+    del radius  # the sliding sums are O(1) in the window size
+    return 4 * 10 + 2 + 2 * math.log2(block_w) + 4
 
 
 def fused_sad_roofline(
-    height: int, width: int, num_disp: int, radius: int, measured_ms: float
+    height: int, width: int, num_disp: int, radius: int, measured_ms: float,
+    device_kind: str, block_w: int = 64,
 ) -> dict:
-    k = 2 * radius + 1
-    wp = int(np.ceil(width / 128)) * 128
-    tile_h = 8 * max(1, 256 // (wp // 128))  # matches kernel's tile choice
-    halo = (tile_h + 2 * radius) / tile_h
-    pairs = num_disp // 2
-    ops_per_px_pair = (
-        1  # lane rotate of the shifted right slab
-        + 6 * halo  # two abs-diffs + 16-bit pack, on halo rows
-        + 5 * halo  # vertical sliding sum (doubling, k=11 -> 5 adds)
-        + 6  # column validity / width masks (compare+select)
-        + 5  # horizontal sliding sum
-        + 8  # unpack, key pack, running min x2
-    )
-    total_ops = height * wp * pairs * ops_per_px_pair
-    # HBM: both u8 slabs re-read with halo, one u8 disparity row out.
-    total_bytes = 2 * height * wp * halo + height * wp
+    peaks = device_peaks(device_kind)
+    ops = height * width * num_disp * sad_wta_ops_per_pixel_disparity(radius, block_w)
+    hbm_bytes = 2 * height * width + 4 * height * width
     t = measured_ms * 1e-3
+    ops_bound = ops / peaks["int32_ops_per_s"]
+    bytes_bound = hbm_bytes / peaks["hbm_bytes_per_s"]
     return {
-        "kernel": "fused_sad_wta_packed_pair",
+        "kernel": "fused_sad_wta",
+        "device_kind": device_kind,
         "shape": f"{height}x{width}x{num_disp}d_r{radius}",
         "measured_ms": measured_ms,
-        "vpu_ops": int(total_ops),
-        "hbm_bytes": int(total_bytes),
-        "vpu_util_pct": round(100 * total_ops / t / V5E_VPU_OPS, 1),
-        "hbm_util_pct": round(100 * total_bytes / t / V5E_HBM_BPS, 2),
-        "bound": "VPU",
-        "vpu_bound_ms": round(total_ops / V5E_VPU_OPS * 1e3, 3),
-        "hbm_bound_ms": round(total_bytes / V5E_HBM_BPS * 1e3, 4),
+        "int32_ops": int(ops),
+        "hbm_bytes": int(hbm_bytes),
+        "bound": "int32 issue" if ops_bound >= bytes_bound else "HBM",
+        "roofline_ms": max(ops_bound, bytes_bound) * 1e3,
+        "roofline_share": max(ops_bound, bytes_bound) / t,
     }
 
 
-def remap_roofline(
-    height: int, width: int, plan_steps: int, measured_ms: float
-) -> dict:
-    wp = int(np.ceil(width / 128)) * 128
-    ops = height * wp * plan_steps * 4.0  # roll + bounds select + accumulate
-    byts = 2 * height * wp  # u8 in + u8 out (maps folded into the plan)
-    t = measured_ms * 1e-3
-    return {
-        "kernel": "remap_offset_sweep",
-        "shape": f"{height}x{width}_{plan_steps}steps",
-        "measured_ms": measured_ms,
-        "vpu_ops": int(ops),
-        "hbm_bytes": int(byts),
-        "vpu_util_pct": round(100 * ops / t / V5E_VPU_OPS, 1),
-        "hbm_util_pct": round(100 * byts / t / V5E_HBM_BPS, 2),
-        "bound": "VPU (plan-step sweep)",
-        "vpu_bound_ms": round(ops / V5E_VPU_OPS * 1e3, 3),
-    }
-
-
-def st_filter_roofline(plan, num_disp: int, measured_ms: float) -> dict:
+def st_filter_roofline(plan, num_disp: int, measured_ms: float, device_kind: str) -> dict:
     """Gather-rows + scan-ops model for the stride-bucket filter."""
+    peaks = device_peaks(device_kind)
     total = plan.total_pos
     n = plan.num_nodes
     hp = [sum(p for _e, p in row) for row in plan.buckets]
@@ -114,78 +105,60 @@ def st_filter_roofline(plan, num_disp: int, measured_ms: float) -> dict:
     )
     scan_ops = 2 * scan_elems * num_disp * 6  # up+down, a/b update FMAs
     row_bytes = num_disp * 4
+    # Each gathered row is read and written once.
+    gather_bound = 2 * gather_rows * row_bytes / peaks["hbm_bytes_per_s"]
+    scan_bound = scan_ops / peaks["f32_ops_per_s"]
     t = measured_ms * 1e-3
-    gather_t = gather_rows * GATHER_NS_PER_ROW * 1e-9
-    hbm_min_t = gather_rows * row_bytes / V5E_HBM_BPS
     return {
         "kernel": "st_stride_filter",
+        "device_kind": device_kind,
         "shape": f"N={n}_total={total}_D={num_disp}",
         "measured_ms": measured_ms,
         "gather_rows": int(gather_rows),
-        "gather_model_ms": round(gather_t * 1e3, 2),
-        "gather_hbm_floor_ms": round(hbm_min_t * 1e3, 3),
-        "gather_efficiency_vs_hbm_pct": round(100 * hbm_min_t / gather_t, 1),
-        "scan_vpu_ops": int(scan_ops),
-        "scan_vpu_ms": round(scan_ops / V5E_VPU_OPS * 1e3, 3),
-        "bound": "gather overhead (XLA row-gather ~17 ns/row = ~2% of the "
-                 "HBM roofline; the lever is fewer rows, not bandwidth)",
-        "model_total_ms": round(
-            (gather_t + scan_ops / V5E_VPU_OPS) * 1e3, 2
-        ),
+        "gather_hbm_bound_ms": gather_bound * 1e3,
+        "scan_f32_ops": int(scan_ops),
+        "scan_bound_ms": scan_bound * 1e3,
+        "roofline_share": (gather_bound + scan_bound) / t,
     }
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--live", action="store_true",
-                    help="re-measure the fused kernel on this backend")
-    ap.add_argument("--sad-1080p-ms", type=float, default=1.58,
-                    help="measured fused-kernel ms/frame at 1080p/64d")
-    ap.add_argument("--sad-4k-ms", type=float, default=6.6)
-    ap.add_argument("--remap-ms", type=float, default=1.9,
-                    help="per-tile sweep remap ms/frame at 720p")
-    ap.add_argument("--remap-steps", type=int, default=300,
-                    help="mean plan steps per tile (per-tile sweep)")
-    ap.add_argument("--st-ms", type=float, default=12.8,
-                    help="stride filter pipeline ms/frame (Art, 60d)")
+                    help="measure the fused kernel on this GPU first")
+    ap.add_argument("--device-kind", help="device kind of the measured runs")
+    ap.add_argument("--sad-1080p-ms", type=float,
+                    help="measured fused-kernel ms/frame at 1080p/64d/r=5")
+    ap.add_argument("--st-ms", type=float,
+                    help="measured stride-filter ms/frame (Art, 60 levels)")
+    ap.add_argument("--middlebury-root", default=None,
+                    help="Middlebury Images/ directory for the ST plan")
     args = ap.parse_args()
 
     if args.live:
-        # bench.py prints the headline fps; 1000/fps is the ms/frame.
-        import importlib.util
-        import os
+        import jax
 
-        spec = importlib.util.spec_from_file_location(
-            "gsm_bench_headline",
-            os.path.join(os.path.dirname(__file__), "../../bench.py"),
-        )
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        args.sad_1080p_ms = 1000.0 / mod.main()
+        import bench
 
-    out = [
-        fused_sad_roofline(1080, 1920, 64, 5, args.sad_1080p_ms),
-        fused_sad_roofline(2160, 3840, 64, 5, args.sad_4k_ms),
-        remap_roofline(720, 1280, args.remap_steps, args.remap_ms),
-    ]
-    # ST filter: build the Art plan for the true layout.
-    try:
-        from gpu_stereo_matching_tpu.io.middlebury import (
-            load_middlebury_scene,
-        )
+        args.device_kind = jax.devices()[0].device_kind
+        args.sad_1080p_ms = 1000.0 / bench.main()
+    if args.device_kind is None or args.sad_1080p_ms is None:
+        ap.error("pass --live, or --device-kind and --sad-1080p-ms")
+
+    out = [fused_sad_roofline(1080, 1920, 64, 5, args.sad_1080p_ms, args.device_kind)]
+    if args.middlebury_root and args.st_ms:
+        from gpu_stereo_matching_tpu.io.middlebury import load_middlebury_scene
         from gpu_stereo_matching_tpu.tree.builder import (
             build_segment_tree,
             color_edge_weights,
         )
         from gpu_stereo_matching_tpu.tree.stride import StridePlan
 
-        sc = load_middlebury_scene("/root/reference/Images", "Art")
+        sc = load_middlebury_scene(args.middlebury_root, "Art")
         h, w = sc.left_bgr.shape[:2]
         tree = build_segment_tree(color_edge_weights(sc.left_bgr), h, w)
         plan = StridePlan.from_tree(tree, 0.1, device=False)
-        out.append(st_filter_roofline(plan, 60, args.st_ms))
-    except Exception as e:  # dataset not present
-        out.append({"kernel": "st_stride_filter", "skipped": str(e)})
+        out.append(st_filter_roofline(plan, 60, args.st_ms, args.device_kind))
 
     for row in out:
         print(json.dumps(row))

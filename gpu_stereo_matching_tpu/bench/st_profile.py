@@ -6,7 +6,7 @@ bottleneck (the reference's per-stage-timer pattern, ``Device.cu:204-292``):
 * host build:   weights -> FH tree -> stride-bucket plan, per frame (C++)
 * plan upload:  stacked plan arrays host->device, fenced
 * image upload: stacked frame pairs host->device, fenced
-* device:       the fused group dispatch, fenced by a scalar fetch
+* device:       the fused group dispatch, fenced by ``block_until_ready``
 * fetch:        full disparity group device->host
 
 Run: ``python -m gpu_stereo_matching_tpu.bench.st_profile``.
@@ -21,9 +21,10 @@ import numpy as np
 
 
 def _fence(x):
-    import jax.numpy as jnp
+    """Wait until ``x`` is computed on the device."""
+    import jax
 
-    return int(np.asarray(jnp.sum(x.astype(jnp.int32))))
+    return jax.block_until_ready(x)
 
 
 def run_profile(
@@ -116,7 +117,7 @@ def run_profile(
         best = min(best, time.perf_counter() - t0)
     out["image_upload_ms"] = best * 1e3
 
-    # Device compute: group dispatch on pre-uploaded data, scalar-fenced.
+    # Device compute: group dispatch on pre-uploaded data.
     jl, jr = jax.device_put(lefts), jax.device_put(rights)
     res = _st1_device_group_jit(jl, jr, p, cfg.max_disp_levels)
     _fence(res)

@@ -7,7 +7,7 @@ Replaces the reference's use of ``cv::stereoRectify`` +
 produce the rectification rotations R1/R2, rectified projections P1/P2, and
 float32 pixel maps for the bilinear remap op. Host-side NumPy float64 — map
 generation is a one-time precompute per calibration, cached by the pipeline;
-only the remap itself runs on TPU.
+only the remap itself runs on the device.
 
 The test suite cross-checks every output against OpenCV (used strictly as an
 external oracle, never in the product path).

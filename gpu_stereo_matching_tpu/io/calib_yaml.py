@@ -14,7 +14,6 @@ import os
 import re
 
 import numpy as np
-import yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +28,10 @@ class StereoCalibration:
 
 def _parse_opencv_yaml(text: str) -> dict:
     # Strip the YAML 1.0 directive and the opencv-matrix type tags, which
-    # stock PyYAML refuses; the remaining document is plain YAML.
+    # stock PyYAML refuses; the remaining document is plain YAML. PyYAML is
+    # imported here so that calibrations built in code need no YAML.
+    import yaml
+
     text = re.sub(r"^%YAML:1\.0\s*\n", "", text)
     text = text.replace("!!opencv-matrix", "")
     return yaml.safe_load(text)

@@ -4,6 +4,8 @@ The reference leans on OpenCV ``imread/imwrite`` (BGR byte order throughout,
 e.g. ``BlockMatching/Caller.cpp:12-13``, ``STMatching/StereoDisparity.cpp:43-44``).
 We load through PIL into NumPy and keep the engine's convention as **BGR
 uint8** so the cost/weight semantics line up with the reference constants.
+PIL is imported inside the functions that read or write files, so the
+engine itself needs only JAX and NumPy.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ import os
 from typing import Tuple
 
 import numpy as np
-from PIL import Image
 
 
 def load_image_bgr(path: str | os.PathLike) -> np.ndarray:
     """Load an image file as (H, W, 3) uint8 in BGR channel order."""
+    from PIL import Image
+
     with Image.open(path) as im:
         rgb = np.asarray(im.convert("RGB"), dtype=np.uint8)
     return rgb[..., ::-1].copy()
@@ -24,12 +27,16 @@ def load_image_bgr(path: str | os.PathLike) -> np.ndarray:
 
 def load_image_gray(path: str | os.PathLike) -> np.ndarray:
     """Load an image file as (H, W) uint8 gray (PIL's Rec.601 conversion)."""
+    from PIL import Image
+
     with Image.open(path) as im:
         return np.asarray(im.convert("L"), dtype=np.uint8)
 
 
 def save_image(path: str | os.PathLike, img: np.ndarray) -> None:
     """Save a uint8 image; 3-channel input is interpreted as BGR."""
+    from PIL import Image
+
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         arr = np.clip(np.rint(arr), 0, 255).astype(np.uint8)
@@ -41,6 +48,8 @@ def save_image(path: str | os.PathLike, img: np.ndarray) -> None:
 def resize_bilinear_u8(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     """Host-side bilinear resize (used to reproduce the reference demos'
     downsampling, e.g. 320×200 in ``Caller.cpp:40-45``)."""
+    from PIL import Image
+
     h, w = size_hw
     if img.ndim == 3:
         pil = Image.fromarray(img[..., ::-1])

@@ -4,10 +4,11 @@ End-to-end: gray pair → per-disparity AD cost volume → (2r+1)² box-filter
 SAD aggregation → WTA disparity, with optional LR consistency + median
 post-filtering. The reference's live path is ``blockMatching_gpu``
 (``BlockMatching/Device.cu:173-301``) driving ``kernalPreCal_V2`` and the
-fused ``kernalFindCorr``; here the whole thing is one jitted XLA program
-(box sums via prefix scans instead of O(w²) window loops), with a fused
-Pallas kernel available in :mod:`gpu_stereo_matching_tpu.kernels` for the
-hot path.
+fused ``kernalFindCorr``; here :func:`block_matching_pipeline` is one jitted
+XLA program (box sums via prefix scans instead of O(w²) window loops) and
+the plain reference for the fused kernel in
+:mod:`gpu_stereo_matching_tpu.kernels.sad_wta`, which
+:func:`sad_wta_disparity` runs on the GPU.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu.core.validation import check_gray_pair
+from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching
 from gpu_stereo_matching_tpu.ops.aggregate import aggregate_cost_volume
 from gpu_stereo_matching_tpu.ops.cost import ad_cost_volume
 from gpu_stereo_matching_tpu.ops.postprocess import lr_consistency_mask, median_filter_u8
@@ -69,6 +71,56 @@ def block_matching_disparity(
         mask = lr_consistency_mask(disp, disp_r, config.lr_max_diff)
         disp = jnp.where(mask, disp, 0)
 
+    if config.median_radius > 0:
+        disp = median_filter_u8(disp.astype(jnp.uint8), config.median_radius).astype(
+            jnp.int32
+        )
+    return disp
+
+
+def sad_wta_disparity(
+    left_gray: jnp.ndarray,
+    right_gray: jnp.ndarray,
+    num_disparities: int,
+    radius: int,
+) -> jnp.ndarray:
+    """SAD + WTA disparity of (H, W) or (B, H, W) uint8 pairs → int32.
+
+    Lowers to the fused kernel where the computation runs on a CUDA device
+    and to the XLA ops path everywhere else; the two are bit-identical.
+    The choice follows the platform each lowering targets, so one jitted
+    caller can run on the GPU and on the host CPU in the same process.
+    """
+    config = BlockMatchingConfig(num_disparities=num_disparities, sad_radius=radius)
+
+    def xla(left, right):
+        if left.ndim == 3:
+            return jax.vmap(lambda l, r: block_matching_disparity(l, r, config))(
+                left, right
+            )
+        return block_matching_disparity(left, right, config)
+
+    def kernel(left, right):
+        return fused_block_matching(left, right, num_disparities, radius)
+
+    return jax.lax.platform_dependent(
+        left_gray, right_gray, cuda=kernel, default=xla
+    )
+
+
+def block_matching_frame(
+    left_gray: jnp.ndarray,
+    right_gray: jnp.ndarray,
+    config: BlockMatchingConfig = BlockMatchingConfig(),
+) -> jnp.ndarray:
+    """Like :func:`block_matching_disparity`, through the fused kernel on
+    the GPU when the config allows it (no LR check, which needs the whole
+    SAD volume); the median filter runs after it as usual."""
+    if config.lr_consistency or int(config.invalid_cost) != 255:
+        return block_matching_disparity(left_gray, right_gray, config)
+    disp = sad_wta_disparity(
+        left_gray, right_gray, config.num_disparities, config.sad_radius
+    )
     if config.median_radius > 0:
         disp = median_filter_u8(disp.astype(jnp.uint8), config.median_radius).astype(
             jnp.int32

@@ -4,8 +4,10 @@ The production analog of the reference's ``remapTest`` + ``singleFrame``
 demos (``BlockMatching/Caller.cpp``) as one engine: rectification maps are
 precomputed once per calibration (host, cached), and every frame pair runs
 a single jitted device program — gray conversion, bilinear remap through
-the maps, and the fused Pallas SAD+WTA kernel — so steady-state streaming
-has zero host-side math and one dispatch per frame (or per batch).
+the maps (XLA's gather), and block matching (the fused SAD+WTA kernel on
+the GPU, see :func:`models.block_matching.block_matching_frame`) — so
+steady-state streaming has zero host-side math and one dispatch per frame
+(or per batch).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 from gpu_stereo_matching_tpu.calib.rectify import rectification_maps_from_calibration
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu.io.calib_yaml import StereoCalibration
-from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching
+from gpu_stereo_matching_tpu.models.block_matching import block_matching_frame
 from gpu_stereo_matching_tpu.ops.color import gray_blockmatching_bgr
 from gpu_stereo_matching_tpu.ops.remap import remap_bilinear_u8
 from gpu_stereo_matching_tpu.utils.cache import ArtifactCache, content_key
@@ -35,7 +37,6 @@ class StereoRig:
         image_size_hw: Tuple[int, int],
         config: BlockMatchingConfig = BlockMatchingConfig(),
         cache: Optional[ArtifactCache] = None,
-        use_pallas: bool = True,
     ) -> None:
         self.config = config
         self.image_size_hw = image_size_hw
@@ -51,52 +52,25 @@ class StereoRig:
         )
         self._maps = tuple(jnp.asarray(m) for m in (lmx, lmy, rmx, rmy))
 
-        # Pallas sweep-plan remap (kernels/remap.py) when the maps fit its
-        # bounded-offset form; XLA gather fallback otherwise.
-        from gpu_stereo_matching_tpu.kernels.remap import (
-            build_remap_plan,
-            remap_bilinear_u8_planned,
-        )
-
-        self._remap_plans = (
-            (
-                build_remap_plan(lmx, lmy, image_size_hw),
-                build_remap_plan(rmx, rmy, image_size_hw),
-            )
-            if use_pallas
-            else (None, None)
-        )
-
-        num_d, radius = config.num_disparities, config.sad_radius
-        lplan, rplan = self._remap_plans
-
-        def frame_step(left_bgr, right_bgr, lmx, lmy, rmx, rmy):
-            gl = gray_blockmatching_bgr(left_bgr)
-            gr = gray_blockmatching_bgr(right_bgr)
-            rl = (
-                remap_bilinear_u8_planned(gl, lplan)
-                if lplan is not None
-                else remap_bilinear_u8(gl, lmx, lmy)
-            )
-            rr = (
-                remap_bilinear_u8_planned(gr, rplan)
-                if rplan is not None
-                else remap_bilinear_u8(gr, rmx, rmy)
-            )
-            if use_pallas:
-                return fused_block_matching(rl, rr, num_d, radius)
-            from gpu_stereo_matching_tpu.models.block_matching import (
-                block_matching_disparity,
+        def rectify(left_bgr, right_bgr, lmx, lmy, rmx, rmy):
+            return (
+                remap_bilinear_u8(gray_blockmatching_bgr(left_bgr), lmx, lmy),
+                remap_bilinear_u8(gray_blockmatching_bgr(right_bgr), rmx, rmy),
             )
 
-            return block_matching_disparity(rl, rr, config)
+        def frame_step(left_bgr, right_bgr, *maps):
+            return block_matching_frame(*rectify(left_bgr, right_bgr, *maps), config)
+
+        def batched(step):
+            return jax.jit(
+                lambda lb, rb, *maps: jax.lax.map(
+                    lambda lr: step(lr[0], lr[1], *maps), (lb, rb)
+                )
+            )
 
         self._frame_step = jax.jit(frame_step)
-        self._batch_step = jax.jit(
-            lambda lb, rb, a, b, c, d: jax.lax.map(
-                lambda lr: frame_step(lr[0], lr[1], a, b, c, d), (lb, rb)
-            )
-        )
+        self._batch_step = batched(frame_step)
+        self._rectify_batch = batched(rectify)
 
     def process(self, left_bgr, right_bgr, timer: Optional[StageTimer] = None):
         """One (H, W, 3) uint8 BGR pair → (H, W) int32 disparity."""
@@ -109,6 +83,13 @@ class StereoRig:
     def process_batch(self, left_bgr, right_bgr):
         """(B, H, W, 3) uint8 BGR batches → (B, H, W) int32 disparities."""
         return self._batch_step(
+            jnp.asarray(left_bgr), jnp.asarray(right_bgr), *self._maps
+        )
+
+    def rectify_batch(self, left_bgr, right_bgr):
+        """(B, H, W, 3) uint8 BGR batches → the rectified (B, H, W) uint8
+        gray pair that :meth:`process_batch` matches."""
+        return self._rectify_batch(
             jnp.asarray(left_bgr), jnp.asarray(right_bgr), *self._maps
         )
 

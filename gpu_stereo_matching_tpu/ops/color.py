@@ -1,4 +1,4 @@
-"""Color conversion and gradient ops (VPU element-wise work).
+"""Color conversion and gradient ops (element-wise device work).
 
 Semantics parity notes (vs. the reference):
 

@@ -2,16 +2,16 @@
 
 There is no hand-written transport (the reference has none either — its
 only parallelism is single-GPU SIMT): multi-host runs use JAX's built-in
-distributed runtime; XLA compiles every collective in the sharded pipeline
-(halo ``ppermute``, WTA ``pmin``) onto ICI within a slice and DCN across
-hosts.
+distributed runtime; XLA hands every collective in the sharded pipeline
+(halo ``ppermute``, WTA ``pmin``) to NCCL, over NVLink within a host and
+the network across hosts.
 
-Typical SPMD launch — the same script on every host:
+Typical SPMD launch — the same script on every host, one process per host:
 
     python -m gpu_stereo_matching_tpu.parallel.launch \
         --coordinator 10.0.0.1:8476 --num-processes 4 --process-id $ID
 
-or rely on TPU-pod auto-detection with no arguments.
+On a single host, run it with no arguments: all local cards form the mesh.
 """
 
 from __future__ import annotations
@@ -25,17 +25,20 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Bring up the JAX distributed runtime (auto-detects on TPU pods)."""
+    """Bring up the JAX distributed runtime for a multi-host run.
+
+    Nothing tells JAX of a GPU cluster, so all three arguments are needed;
+    with no coordinator this is a single-host run and does nothing.
+    """
     import jax
 
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    jax.distributed.initialize(**kwargs)
+    if coordinator_address is None:
+        return
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def main(argv=None) -> int:

@@ -1,19 +1,21 @@
 """Device-mesh construction for distributed stereo.
 
 The reference's only parallelism is single-GPU CUDA grid/block data
-parallelism (SURVEY §2.5); the TPU framework defines its own first-class
+parallelism (SURVEY §2.5); this framework defines its own first-class
 strategies over a ``jax.sharding.Mesh`` with axes:
 
 * ``data``  — stereo frame batches (pure DP, no communication),
 * ``space`` — image/cost-volume H tiling with ``ppermute`` halo exchange
-  over ICI (the ring/CP-style neighbor pattern),
+  (the ring/CP-style neighbor pattern),
 * ``disp``  — disparity-axis sharding (TP analog); WTA becomes a packed
   min-argmin reduction over the axis.
 
-Multi-host: initialize ``jax.distributed`` outside and pass the global
-device list; shardings are laid out so ``space``/``disp`` neighbors map to
-ICI, with ``data`` outermost across hosts (DCN only sees embarrassingly
-parallel frame traffic).
+The mesh follows the algorithm alone: the cards of one host are joined all
+to all by NVLink, so any device order serves every axis equally, and XLA
+hands the collectives to NCCL. Multi-host: initialize ``jax.distributed``
+outside and pass the global device list; ``data`` is outermost, so with
+contiguous per-host device blocks the network between hosts only carries
+embarrassingly parallel frame traffic.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def build_mesh(
 
     ``data`` is the outermost (slowest-varying) axis so that, in multi-host
     runs with contiguous per-host device blocks, halo and WTA collectives
-    stay within a host's ICI domain.
+    stay within one host's NVLink domain.
     """
     devs = list(devices) if devices is not None else jax.devices()
     need = config.num_devices

@@ -4,9 +4,9 @@ Strategy (SURVEY §2.5):
 
 * ``data``  — frames of the batch are independent (pure DP),
 * ``space`` — the image H axis is tiled; SAD windows need ``radius`` rows
-  from each neighbor, supplied by ring halo exchange (``ppermute`` over
-  ICI) with zeros at the global borders → bit-identical to the
-  single-device clipped-window pipeline,
+  from each neighbor, supplied by ring halo exchange (``ppermute``, which
+  XLA hands to NCCL) with zeros at the global borders → bit-identical to
+  the single-device clipped-window pipeline,
 * ``disp``  — each shard evaluates a contiguous disparity range; the WTA
   argmin becomes a packed-key ``pmin`` over the axis
   (key = SAD·D + d, so ties still resolve to the smallest global d).
@@ -24,25 +24,50 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
+from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching_key
 from gpu_stereo_matching_tpu.ops.aggregate import aggregate_cost_volume
 from gpu_stereo_matching_tpu.ops.cost import ad_cost_volume_offset
 from gpu_stereo_matching_tpu.parallel.halo import extend_with_row_halos
 
 
+def _partial_keys(left, right, d0, count, total, radius, invalid_cost, interpret):
+    """Packed WTA keys ``min_d SAD·total + d`` over ``d0 .. d0+count-1`` for
+    (B, H, W) slabs: the fused kernel on a CUDA device (or in the Pallas
+    interpreter when ``interpret``), the XLA ops path elsewhere."""
+
+    def kernel(lf, rf, d0):
+        return fused_block_matching_key(
+            lf, rf, d0, count, total, radius, interpret=interpret
+        )
+
+    def xla(lf, rf, d0):
+        def per_frame(lf, rf):
+            vol = ad_cost_volume_offset(lf, rf, count, d0, invalid_cost)
+            sad = aggregate_cost_volume(vol, radius)  # (count, H, W) int32
+            d_ids = d0 + jnp.arange(count, dtype=jnp.int32)
+            return jnp.min(sad * total + d_ids[:, None, None], axis=0)
+
+        return jax.vmap(per_frame)(lf, rf)
+
+    if interpret:
+        return kernel(left, right, d0)
+    if invalid_cost != 255:
+        return xla(left, right, d0)
+    return lax.platform_dependent(left, right, d0, cuda=kernel, default=xla)
+
+
 def make_sharded_block_matching(
     mesh: Mesh,
     config: BlockMatchingConfig,
-    use_pallas: bool = False,
     interpret: bool = False,
 ):
     """Build a jitted (B, H, W)×2 → (B, H, W) sharded disparity step.
 
     Inputs are uint8 gray batches sharded ``P('data', 'space', None)``;
     output disparities have the same sharding (replicated over ``disp``).
-    ``use_pallas`` runs each shard's partial-range WTA through the fused
-    kernel (``fused_block_matching_key``); the default XLA path is
-    platform-agnostic (``interpret`` forces the kernel interpreter for CPU
-    testing of the Pallas path).
+    Each shard's partial-range WTA runs through the fused kernel on the GPU
+    and through the XLA ops path on other platforms; ``interpret`` runs the
+    kernel in the Pallas interpreter instead (CPU tests of the kernel path).
     """
     num_d = config.num_disparities
     n_disp_shards = mesh.shape["disp"]
@@ -55,33 +80,12 @@ def make_sharded_block_matching(
         lex = extend_with_row_halos(left, radius, "space")
         rex = extend_with_row_halos(right, radius, "space")
         d0 = lax.axis_index("disp") * d_per_shard
-
-        if use_pallas:
-            from gpu_stereo_matching_tpu.kernels.sad_wta import (
-                fused_block_matching_key,
-            )
-
-            def per_frame(lf, rf):
-                keys = fused_block_matching_key(
-                    lf, rf, d0, d_per_shard, num_d, radius,
-                    interpret=interpret,
-                )
-                if radius > 0:
-                    keys = keys[radius:-radius, :]
-                return keys
-        else:
-            def per_frame(lf, rf):
-                vol = ad_cost_volume_offset(
-                    lf, rf, d_per_shard, d0, int(config.invalid_cost)
-                )
-                sad = aggregate_cost_volume(vol, radius)  # (dl, Hl+2r, W) i32
-                if radius > 0:
-                    sad = sad[:, radius:-radius, :]
-                d_ids = d0 + jnp.arange(d_per_shard, dtype=jnp.int32)
-                key = sad * num_d + d_ids[:, None, None]
-                return jnp.min(key, axis=0)
-
-        key = jax.vmap(per_frame)(lex, rex)
+        key = _partial_keys(
+            lex, rex, d0, d_per_shard, num_d, radius,
+            int(config.invalid_cost), interpret,
+        )
+        if radius > 0:
+            key = key[:, radius:-radius, :]
         key = lax.pmin(key, "disp")
         return (key % num_d).astype(jnp.int32)
 

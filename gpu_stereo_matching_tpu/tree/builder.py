@@ -2,8 +2,8 @@
 
 The builder itself (sorted-edge Kruskal/FH scans) is sequential by nature
 and runs on the host in C++ (``csrc/segment_tree.cpp``), bound via ctypes
-(no pybind11 dependency). It emits flat arrays consumed by the TPU tree
-filter. A pure-NumPy twin (`build_segment_tree_py`) exists for parity tests.
+(no pybind11 dependency). It emits flat arrays consumed by the device
+tree filter. A pure-NumPy twin (`build_segment_tree_py`) exists for parity tests.
 
 Edge-weight providers mirror the reference:
 
@@ -230,8 +230,7 @@ _PRESMOOTH_JIT = None
 def _presmooth_bgr(img_bgr: np.ndarray) -> np.ndarray:
     """3×3 clipped-window median per channel (``MeanFilter(img, img, 1)``).
 
-    Jitted as one device program — eager per-op dispatch is prohibitively
-    chatty on remote/tunneled TPU backends.
+    Jitted as one device program rather than many eager per-op dispatches.
     """
     global _PRESMOOTH_JIT
     if _PRESMOOTH_JIT is None:

@@ -1,12 +1,12 @@
 // Host-side segment-tree builder for the non-local cost aggregation path.
 //
-// TPU-native split of the reference's CSegmentTree::BuildSegmentTree
+// Host/device split of the reference's CSegmentTree::BuildSegmentTree
 // (STMatching/SegmentTree.cpp:38-139) + Felzenszwalb-Huttenlocher
 // segmentation (STMatching/segment-graph.h): the spanning-tree construction
 // is irreducibly sequential (sorted-edge union-find scans), so it runs here
 // in C++ on the host; it emits flat arrays (BFS order, parents, quantized
 // edge distances, per-depth level offsets, DFS intervals) that drive the
-// massively parallel tree-scan aggregation kernels on the TPU.
+// massively parallel tree-scan aggregation on the accelerator.
 //
 // Semantics intentionally matched to the reference:
 //  * 4-connected grid edges, enumerated right then up per pixel

@@ -1,4 +1,4 @@
-"""Non-local segment-tree cost aggregation as parallel level scans on TPU.
+"""Non-local segment-tree cost aggregation as parallel level scans.
 
 The reference filter (``STMatching/SegmentTree.cpp:148-181``) is two strictly
 sequential passes over the BFS array:
@@ -6,7 +6,7 @@ sequential passes over the BFS array:
 * leaf→root:  ``buf[parent(v)] += w(v) · buf[v]``  (children before parents)
 * root→leaf:  ``final[v] = w(v)·(final[parent(v)] − w(v)·buf[v]) + buf[v]``
 
-The TPU reformulation exploits that nodes of one BFS depth have no
+The data-parallel reformulation exploits that nodes of one BFS depth have no
 ancestor/descendant relations: each pass becomes a ``lax.scan`` over depths
 where every step is a fully vectorized segment scatter-add (upward) or
 gather (downward) over all nodes of that depth × all disparity channels.

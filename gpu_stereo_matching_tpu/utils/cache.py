@@ -1,7 +1,7 @@
 """Artifact cache: rectification maps, tree plans, compiled executables.
 
 The reference's only persistence is ad-hoc ``imwrite``/YAML artifacts
-(SURVEY §5 checkpoint/resume). The TPU engine's analog caches expensive
+(SURVEY §5 checkpoint/resume). This engine's analog caches expensive
 host-side precomputations keyed by a content hash:
 
 * rectification maps keyed by (calibration bytes, image size),
@@ -61,10 +61,46 @@ class ArtifactCache:
         return value
 
 
-def enable_jit_cache(directory: str = "/tmp/gsm_tpu_jit_cache") -> None:
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
+def jit_cache_dir() -> str:
+    """Where compiled executables are kept: ``JAX_COMPILATION_CACHE_DIR``
+    when it is set, else ``.jax_cache`` at the root of the checkout (a
+    fixed path, since the path is part of the cache key)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".jax_cache"
+    )
+
+
+def enable_jit_cache() -> None:
     """Turn on JAX's persistent compilation cache (compile-once semantics
-    across processes — the 'checkpoint' for XLA executables)."""
+    across processes — the 'checkpoint' for XLA executables).
+
+    JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself; only when it is unset
+    is the in-checkout directory configured here.
+    """
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", directory)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", jit_cache_dir())
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+PARALLEL_GPU_CODEGEN = "--xla_gpu_enable_llvm_module_compilation_parallelism=true"
+
+
+def enable_parallel_gpu_codegen() -> None:
+    """Let XLA generate a GPU program's kernels on all host cores.
+
+    The segment-tree programs hold about two thousand fused kernels, and
+    their GPU compile takes minutes when the kernels are generated one
+    after another. The flag goes into ``XLA_FLAGS``, so call this before
+    JAX creates its GPU backend; a value already in ``XLA_FLAGS`` wins.
+    """
+    flags = os.environ.get("XLA_FLAGS", "")
+    name = PARALLEL_GPU_CODEGEN.split("=")[0]
+    if name not in flags:
+        os.environ["XLA_FLAGS"] = f"{flags} {PARALLEL_GPU_CODEGEN}".strip()

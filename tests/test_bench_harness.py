@@ -10,7 +10,10 @@ from gpu_stereo_matching_tpu.io.middlebury import bad_pixel_rate, nonocc_mask
 
 def test_micro_benchmarks_tiny():
     res = run_micro_benchmarks(height=16, width=32, iters=2)
-    assert set(res) >= {"gray_tpu", "remap_tpu", "median7x7_tpu"}
+    assert set(res) >= {
+        "gray_device", "remap_device", "median7x7_device",
+        "bm_main_path", "bm_xla_pipeline", "median_r5_histogram",
+    }
     assert all(v > 0 for v in res.values())
 
 
@@ -44,14 +47,16 @@ def test_nonocc_mask_math():
 
 
 def test_scaling_prediction_model():
-    """Round-5 comm-volume arithmetic: prescribed config-5 strategies meet
-    the >=85% bar; the disp-axis WTA all-reduce is correctly flagged as
-    comm-bound at full 1080p (the reason it is a memory lever only)."""
+    """Comm-volume arithmetic: prescribed config-5 strategies meet the
+    >=85% bar; the disp-axis WTA all-reduce is correctly flagged as
+    comm-bound at full 1080p (the reason it is a memory lever only).
+    The compute time is of the order the fused kernel takes per 1080p
+    frame on an H100 (PERF.md)."""
     from gpu_stereo_matching_tpu.bench.scaling import (
         predict_scaling_efficiency,
     )
 
-    rows = predict_scaling_efficiency()
+    rows = predict_scaling_efficiency(compute_ms_per_frame=1.0)
     by = {r["strategy"]: r for r in rows}
     for name, r in by.items():
         assert 0.0 < r["predicted_efficiency"] <= 1.0

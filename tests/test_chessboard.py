@@ -1,5 +1,7 @@
 """Native chessboard detection + calibration YAML writer."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -124,13 +126,15 @@ def test_saddle_response_peaks_at_corner():
     assert d < 2.5
 
 
-def test_real_chess_capture_matches_opencv():
+def test_real_chess_capture_matches_opencv(reference_chess_root):
     cv2 = pytest.importorskip("cv2")
     from PIL import Image
     from scipy.spatial import cKDTree
 
     im = np.asarray(
-        Image.open("/root/reference/Chess/Set2/Left_10.jpg").convert("L")
+        Image.open(
+            os.path.join(reference_chess_root, "Set2", "Left_10.jpg")
+        ).convert("L")
     )
     got = detect_chessboard_corners_native(im, 14, 14)
     assert got is not None and got.shape == (196, 2)

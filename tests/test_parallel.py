@@ -61,7 +61,7 @@ def test_sharded_pallas_kernel_matches(rng, mesh_shape):
     right = rng.integers(0, 256, size=(b, h, w), dtype=np.uint8)
 
     mesh = build_mesh(MeshConfig(data=data, space=space, disp=disp))
-    step = make_sharded_block_matching(mesh, cfg, use_pallas=True, interpret=True)
+    step = make_sharded_block_matching(mesh, cfg, interpret=True)
     jl, jr = shard_batch(mesh, jnp.asarray(left), jnp.asarray(right))
     got = np.asarray(step(jl, jr))
     want = np.asarray(block_matching_pipeline(jnp.asarray(left), jnp.asarray(right), cfg))

@@ -33,7 +33,7 @@ def test_rig_matches_composed_stages(tmp_path, rng, tiny_calib):
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
     rig = StereoRig(
         tiny_calib, size_hw, cfg,
-        cache=ArtifactCache(str(tmp_path)), use_pallas=False,
+        cache=ArtifactCache(str(tmp_path)),
     )
     left = rng.integers(0, 256, size=(*size_hw, 3), dtype=np.uint8)
     right = rng.integers(0, 256, size=(*size_hw, 3), dtype=np.uint8)
@@ -53,7 +53,7 @@ def test_rig_batch(tmp_path, rng, tiny_calib):
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
     rig = StereoRig(
         tiny_calib, size_hw, cfg,
-        cache=ArtifactCache(str(tmp_path)), use_pallas=False,
+        cache=ArtifactCache(str(tmp_path)),
     )
     lb = rng.integers(0, 256, size=(3, *size_hw, 3), dtype=np.uint8)
     rb = rng.integers(0, 256, size=(3, *size_hw, 3), dtype=np.uint8)
@@ -66,12 +66,12 @@ def test_rig_batch(tmp_path, rng, tiny_calib):
 def test_map_cache_reused(tmp_path, tiny_calib):
     cache = ArtifactCache(str(tmp_path))
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
-    StereoRig(tiny_calib, (16, 24), cfg, cache=cache, use_pallas=False)
+    StereoRig(tiny_calib, (16, 24), cfg, cache=cache)
     import os
 
     files = [f for f in os.listdir(tmp_path) if f.endswith(".pkl")]
     assert len(files) == 1
     # Second rig with same calibration hits the cache (no new files).
-    StereoRig(tiny_calib, (16, 24), cfg, cache=cache, use_pallas=False)
+    StereoRig(tiny_calib, (16, 24), cfg, cache=cache)
     files2 = [f for f in os.listdir(tmp_path) if f.endswith(".pkl")]
     assert files2 == files

@@ -1,4 +1,4 @@
-"""Segment-tree builder (C++ vs NumPy twin) and TPU tree filter vs oracle."""
+"""Segment-tree builder (C++ vs NumPy twin) and device tree filter vs oracle."""
 
 import numpy as np
 import pytest

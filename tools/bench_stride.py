@@ -1,7 +1,7 @@
-"""Ad-hoc A/B: stride-bucket vs coded plan-order ST-1 device rate (TPU).
+"""Ad-hoc A/B: stride-bucket vs coded plan-order ST-1 device rate.
 
 Mimics bench/st_profile.py's methodology: group dispatch on pre-uploaded
-data, scalar-fenced, best of N reps.
+data, ended by ``block_until_ready``, best of N reps.
 """
 
 import json
@@ -12,9 +12,10 @@ import numpy as np
 
 
 def _fence(x):
-    import jax.numpy as jnp
+    """Wait until ``x`` is computed on the device."""
+    import jax
 
-    return int(np.asarray(jnp.sum(x.astype(jnp.int32))))
+    return jax.block_until_ready(x)
 
 
 def main(group_size=8, reps=4):
@@ -107,7 +108,7 @@ def main(group_size=8, reps=4):
             best = min(best, time.perf_counter() - t0)
         out[f"{mode}_device_ms_per_frame"] = best * 1e3 / group_size
         out[f"{mode}_fps"] = group_size / best
-        out[f"{mode}_checksum"] = _fence(res)
+        out[f"{mode}_checksum"] = int(np.asarray(res, np.int64).sum())
 
     print(json.dumps({k: round(v, 3) for k, v in out.items()}))
 

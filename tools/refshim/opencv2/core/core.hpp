@@ -5,7 +5,7 @@
 // the Python harness converts PNG <-> PPM losslessly. imread mimics
 // OpenCV's BGR channel order.
 //
-// This file is part of the verification harness of the TPU framework; it
+// This file is part of the verification harness of this framework; it
 // contains no reference code. API coverage is exactly what
 // STMatching/{StereoDisparity,StereoHelper,SegmentTree,Toolkit,main}.cpp
 // touch: Mat (CV_8U/CV_8UC3/CV_32F, continuous), Mat1b/Mat1f/Mat3b views,
