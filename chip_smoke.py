@@ -25,6 +25,14 @@ Phases on one card (inputs are seeded synthetic scenes with ground truth,
 6. streaming ST-2, 2 groups, with the same tolerance against
    ``st2_disparity``.
 
+The ST streams are warmed up on their first group until a pass compiles
+nothing; the timed pass must build no executable.
+
+``--multi`` runs instead, on four cards: sharded block matching on two
+meshes and the sharded LR + median chain, each bit-identical to one card;
+then sharded ST-1 and ST-2 over ``space=4`` against the tiled pipelines
+(4 bands) on the CPU, with the ST tolerance.
+
 Every phase raises on failure. The last line of standard output is the JSON
 result; it is printed only when every phase passed.
 """
@@ -79,6 +87,56 @@ def run_twice(fn):
     return out, first, second
 
 
+class Executables:
+    """Counts the XLA executables JAX builds, compiled or loaded from the
+    persistent compile cache, and the seconds that takes (jax.monitoring)."""
+
+    def __init__(self):
+        from jax import monitoring
+
+        self.built = self.from_cache = 0
+        self.seconds = 0.0
+        monitoring.register_event_duration_secs_listener(self._duration)
+        monitoring.register_event_listener(self._event)
+
+    def _duration(self, event, duration_secs, **_):
+        if event == "/jax/core/compile/backend_compile_duration":
+            self.built += 1
+            self.seconds += duration_secs
+
+    def _event(self, event, **_):
+        if event == "/jax/compilation_cache/cache_hits":
+            self.from_cache += 1
+
+    def state(self):
+        return self.built, self.from_cache, self.seconds
+
+    def since(self, state) -> dict:
+        built, from_cache, seconds = state
+        return dict(
+            executables_built=self.built - built,
+            from_compile_cache=self.from_cache - from_cache,
+            build_s=self.seconds - seconds,
+        )
+
+
+def until_steady(phase: str, executables: Executables, run, limit: int = 3):
+    """Call ``run`` until a call builds no executable; return the calls made.
+
+    The segment-tree plan layouts come from a registry that grows while it
+    sees new trees, and a grown layout is a new program. ST-2 feeds the
+    registry two tree families (the σ₁ view trees and the re-segmentation
+    trees), so its second call compiles phase 1 again for the layout the
+    re-segmentation trees grew (PERF.md, Open questions).
+    """
+    for calls in range(1, limit + 1):
+        before = executables.built
+        run()
+        if executables.built == before:
+            return calls
+    raise AssertionError(f"{phase}: still compiling after {limit} warm-up calls")
+
+
 def assert_equal(phase: str, what: str, got, want) -> None:
     got, want = np.asarray(got), np.asarray(want)
     if got.shape != want.shape:
@@ -119,7 +177,8 @@ def phase_device():
     ).stdout.strip()
     print(smi, flush=True)
     log("device", platform=dev.platform, kind=repr(dev.device_kind),
-        count=len(jax.devices()), host_cpus=os.cpu_count(), jax=jax.__version__)
+        count=len(jax.devices()), host_cpus=os.cpu_count(), jax=jax.__version__,
+        xla_flags=repr(os.environ.get("XLA_FLAGS", "")))
     return dev
 
 
@@ -283,7 +342,7 @@ def _st_frames(seed, n_unique, n_frames):
     return sc, [(sc[i % n_unique].left, sc[i % n_unique].right) for i in range(n_frames)]
 
 
-def phase_st(seed, cpu, iterate):
+def phase_st(seed, cpu, iterate, executables):
     import jax
 
     from gpu_stereo_matching_tpu.core.config import SegmentTreeConfig
@@ -301,14 +360,20 @@ def phase_st(seed, cpu, iterate):
     pipe = (SegmentTreeST2BatchPipeline if iterate else SegmentTreeBatchPipeline)(
         cfg, group_size=g
     )
-    # First pass compiles; the second is the steady-state stream.
+    # Warm-up passes over the first group compile; the timed pass over all
+    # groups is the steady-state stream and must build nothing.
+    state = executables.state()
     t0 = time.perf_counter()
-    list(pipe.process(frames[:g]))
-    first = time.perf_counter() - t0
+    passes = until_steady(phase, executables, lambda: list(pipe.process(frames[:g])))
+    log(phase, warmup_passes=passes, warmup_s=time.perf_counter() - t0,
+        **executables.since(state))
+    state = executables.state()
     t0 = time.perf_counter()
     outs = list(pipe.process(frames))
     run = time.perf_counter() - t0
-    log(phase, groups=groups, group_size=g, compile_and_run_s=first, run_s=run,
+    if executables.state() != state:
+        raise AssertionError(f"{phase}: the timed pass built executables")
+    log(phase, groups=groups, group_size=g, run_s=run,
         ms_per_frame=run / len(frames) * 1e3)
     ref_fn = st2_disparity if iterate else st1_disparity
     with jax.default_device(cpu):
@@ -325,7 +390,16 @@ def phase_st(seed, cpu, iterate):
     log(phase, bad2=bad2)
 
 
-def run_single(seed):
+def run_phases(phases, executables) -> None:
+    for name, fn in phases:
+        state = executables.state()
+        t0 = time.perf_counter()
+        fn()
+        log(name, phase_wall_s=time.perf_counter() - t0,
+            **executables.since(state), status="passed")
+
+
+def run_single(seed, executables):
     import jax
 
     from gpu_stereo_matching_tpu.tree import builder
@@ -335,28 +409,28 @@ def run_single(seed):
     t0 = time.perf_counter()
     builder._lib()
     log("device", tree_library_build_s=time.perf_counter() - t0)
-    for name, fn in (
+    run_phases((
         ("bm_1080p", lambda: phase_bm_headline(seed, cpu)),
         ("bm_1080p_lr_median5", lambda: phase_bm_config2(seed, cpu)),
         ("rig_720p", lambda: phase_rig(seed, cpu)),
-        ("st1_stream", lambda: phase_st(seed, cpu, iterate=False)),
-        ("st2_stream", lambda: phase_st(seed, cpu, iterate=True)),
-    ):
-        t0 = time.perf_counter()
-        fn()
-        log(name, phase_wall_s=time.perf_counter() - t0, status="passed")
+        ("st1_stream", lambda: phase_st(seed, cpu, False, executables)),
+        ("st2_stream", lambda: phase_st(seed, cpu, True, executables)),
+    ), executables)
     return dev
 
 
-def run_multi(seed):
-    """The sharded paths on a four-card mesh, each against one card."""
+def run_multi(seed, executables):
+    """The sharded paths on a four-card mesh, each against its one-device
+    counterpart."""
     import jax
 
     dev = phase_device()
     if len(jax.devices()) != 4:
         raise RuntimeError(f"--multi needs 4 GPUs, found {len(jax.devices())}")
-    multi_bm(seed)
-    multi_st(seed)
+    run_phases((
+        ("multi_bm", lambda: multi_bm(seed)),
+        ("multi_st", lambda: multi_st(seed, executables)),
+    ), executables)
     return dev
 
 
@@ -412,7 +486,7 @@ def multi_bm(seed):
     assert_equal(phase, "vs one card", got, want)
 
 
-def multi_st(seed):
+def multi_st(seed, executables):
     """Sharded ST-1 and ST-2 over ``space=4`` against the tiled pipelines."""
     import jax
 
@@ -427,26 +501,38 @@ def multi_st(seed):
         st2_disparity_sharded,
     )
 
-    one = jax.devices()[0]
     st_h, st_w, st_d = ST_SHAPE
     st_cfg = SegmentTreeConfig(max_disp_levels=st_d)
     st_mesh = build_mesh(MeshConfig(1, 4, 1))
     # Rows cut to a multiple of 4 (370 → 368) for four equal bands.
     s = scenes(seed + 500, 1, st_h - st_h % 4, st_w, st_d, 3)[0]
-    for name, sharded, tiled in (
+    # The tiled references run first, on the host CPU: they build every
+    # band's trees, so the layout registry already holds the layouts of the
+    # sharded runs, whose GPU programs are then compiled once.
+    cases = (
         ("sharded_st1_space4", st1_disparity_sharded, st1_disparity_tiled),
         ("sharded_st2_space4", st2_disparity_sharded, st2_disparity_tiled),
-    ):
+    )
+    refs = {}
+    with jax.default_device(jax.devices("cpu")[0]):
+        for name, _, tiled in cases:
+            refs[name], c_s = timed(lambda: tiled(s.left, s.right, 4, st_cfg))
+            log(name, path="tiled_cpu_reference", s=c_s)
+    for name, sharded, _ in cases:
+        state = executables.state()
         t0 = time.perf_counter()
-        sharded(s.left, s.right, st_mesh, st_cfg)
-        first = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = sharded(s.left, s.right, st_mesh, st_cfg)
-        run = time.perf_counter() - t0
-        log(name, compile_and_run_s=first, run_s=run)
-        with jax.default_device(one):
-            want = tiled(s.left, s.right, 4, st_cfg)
-        check_st(name, "vs tiled on one card", [(got, want)], st_cfg.disparity_scale)
+        calls = until_steady(
+            name, executables, lambda: sharded(s.left, s.right, st_mesh, st_cfg)
+        )
+        log(name, warmup_calls=calls, warmup_s=time.perf_counter() - t0,
+            **executables.since(state))
+        state = executables.state()
+        got, run = timed(lambda: sharded(s.left, s.right, st_mesh, st_cfg))
+        if executables.state() != state:
+            raise AssertionError(f"{name}: the timed call built executables")
+        log(name, run_s=run)
+        check_st(name, "vs tiled (4 bands) on the CPU", [(got, refs[name])],
+                 st_cfg.disparity_scale)
 
 
 def main(argv=None) -> int:
@@ -456,12 +542,9 @@ def main(argv=None) -> int:
                     help="run the sharded paths on four cards instead")
     args = ap.parse_args(argv)
 
-    from gpu_stereo_matching_tpu.utils.cache import (
-        enable_jit_cache,
-        enable_parallel_gpu_codegen,
-    )
+    # The package sets its XLA flags on import, before JAX starts a backend.
+    from gpu_stereo_matching_tpu.utils.cache import enable_jit_cache
 
-    enable_parallel_gpu_codegen()  # before JAX creates its GPU backend
     import jax
 
     dev = jax.devices()[0]
@@ -469,8 +552,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no GPU (JAX platform {dev.platform!r})", file=sys.stderr)
         return 1
     enable_jit_cache()
+    executables = Executables()
     t0 = time.perf_counter()
-    dev = run_multi(args.seed) if args.multi else run_single(args.seed)
+    run = run_multi if args.multi else run_single
+    dev = run(args.seed, executables)
     log("total", wall_s=time.perf_counter() - t0)
     print(result_line(dev.platform, dev.device_kind, len(jax.devices())), flush=True)
     return 0

@@ -21,6 +21,18 @@ parallel tree scans, and scaling is expressed with ``jax.sharding.Mesh`` +
 ``shard_map`` halo exchange instead of CUDA grids.
 """
 
+import os as _os
+
+# The segment-tree programs hold about two thousand fused kernels, and their
+# GPU compile takes minutes when XLA generates the kernels one after another.
+# XLA reads this flag when JAX starts its GPU backend, so importing the
+# package before the first computation is enough; a value already in
+# XLA_FLAGS wins.
+_PARALLEL_GPU_CODEGEN = "--xla_gpu_enable_llvm_module_compilation_parallelism"
+_flags = _os.environ.get("XLA_FLAGS", "")
+if _PARALLEL_GPU_CODEGEN not in _flags:
+    _os.environ["XLA_FLAGS"] = f"{_flags} {_PARALLEL_GPU_CODEGEN}=true".strip()
+
 __version__ = "0.1.0"
 
 from gpu_stereo_matching_tpu.core.config import (  # noqa: F401

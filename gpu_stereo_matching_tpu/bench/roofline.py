@@ -7,14 +7,19 @@ is not in the table is an error, not a default.
 
 Kernels covered:
 
-1. **Fused SAD+WTA** (`kernels/sad_wta.py`): per output pixel, per
-   disparity and per output row step the program evaluates four clipped
-   AD costs (entering/leaving row × entering/leaving column) at ≈10 int32
-   operations each (address, three masks, load, widen, subtract, abs, two
-   selects), updates the running sum (2), takes a prefix sum along the
-   strip (≈2·log₂(block_w)), packs and reduces the key (4): ≈58 int32
-   operations. Device memory sees each u8 image once and one int32 per
-   output pixel; the shifted re-reads are served by L1/L2.
+1. **Fused SAD+WTA** (`kernels/sad_wta.py`, at its shipped tiles
+   ``TILES``): per output row step a program calls ``edge`` twice (row
+   entering, row leaving). Each call evaluates clipped AD costs at the
+   entering and leaving columns of its ``block_w`` strip and over the
+   ``kp = pow2(2r+1)`` columns of the window left of the strip, so per
+   output pixel and disparity that is ``4 + 2·kp/block_w`` AD costs at
+   ≈10 int32 operations each (address, three masks, load, widen,
+   subtract, abs, two selects). On top: the edge differences and running
+   sums (4), the left-of-strip sums (``2·kp/block_w``), the prefix sum
+   along the strip (≈2·log₂(block_w)), and the SAD, packed key and min
+   (5). At r=5, block_w=16 that is ≈79 int32 operations. Device memory
+   sees each u8 image once and one int32 per output pixel; the shifted
+   re-reads are served by L1/L2.
 2. **Stride-bucket ST filter** (`tree/stride.py`): XLA row gathers, with
    the bytes every gathered row moves, plus 2 affine-scan passes (≈6
    operations per element per step) over the bucketed layout.
@@ -29,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+from typing import Optional
 
 # Published peaks, dense, without sparsity. H100 SXM: NVIDIA H100 data
 # sheet (3.35 TB/s HBM3, 67 TFLOP/s FP32 = 2 operations per FMA on 128
@@ -58,16 +64,22 @@ def device_peaks(device_kind: str) -> dict:
         ) from None
 
 
-def sad_wta_ops_per_pixel_disparity(radius: int, block_w: int = 64) -> float:
+def sad_wta_ops_per_pixel_disparity(radius: int, block_w: int) -> float:
     """int32 operations per (output pixel, disparity) of the fused kernel."""
-    del radius  # the sliding sums are O(1) in the window size
-    return 4 * 10 + 2 + 2 * math.log2(block_w) + 4
+    kp = 1 << (2 * radius).bit_length()  # pow2 >= 2r+1, as in the kernel
+    ad_costs = 4 + 2 * kp / block_w
+    return ad_costs * 10 + 4 + 2 * kp / block_w + 2 * math.log2(block_w) + 5
 
 
 def fused_sad_roofline(
     height: int, width: int, num_disp: int, radius: int, measured_ms: float,
-    device_kind: str, block_w: int = 64,
+    device_kind: str, block_w: Optional[int] = None,
 ) -> dict:
+    """The kernel's time against its int32 and HBM bounds; ``block_w``
+    defaults to the kernel's shipped tile."""
+    from gpu_stereo_matching_tpu.kernels.sad_wta import TILES
+
+    block_w = TILES["block_w"] if block_w is None else block_w
     peaks = device_peaks(device_kind)
     ops = height * width * num_disp * sad_wta_ops_per_pixel_disparity(radius, block_w)
     hbm_bytes = 2 * height * width + 4 * height * width

@@ -20,9 +20,13 @@ import jax.numpy as jnp
 
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu.core.validation import check_gray_pair
-from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching
+from gpu_stereo_matching_tpu.kernels.sad_wta import (
+    INVALID_COST,
+    fused_block_matching,
+    fused_block_matching_key,
+)
 from gpu_stereo_matching_tpu.ops.aggregate import aggregate_cost_volume
-from gpu_stereo_matching_tpu.ops.cost import ad_cost_volume
+from gpu_stereo_matching_tpu.ops.cost import ad_cost_volume, ad_cost_volume_offset
 from gpu_stereo_matching_tpu.ops.postprocess import lr_consistency_mask, median_filter_u8
 from gpu_stereo_matching_tpu.ops.wta import wta_disparity
 
@@ -108,6 +112,46 @@ def sad_wta_disparity(
     )
 
 
+def sad_wta_keys(
+    left: jnp.ndarray,
+    right: jnp.ndarray,
+    d0,
+    count: int,
+    total: int,
+    radius: int,
+    invalid_cost: int = INVALID_COST,
+    interpret: bool = False,
+) -> jnp.ndarray:
+    """Packed WTA keys ``min_d SAD·total + d`` over ``d0 .. d0+count-1`` for
+    (B, H, W) uint8 slabs → (B, H, W) int32; ``d0`` may be traced.
+
+    Like :func:`sad_wta_disparity`, the fused kernel where the computation
+    runs on a CUDA device and the XLA ops path elsewhere (and always for an
+    ``invalid_cost`` the kernel does not use); ``interpret`` runs the kernel
+    in the Pallas interpreter instead.
+    """
+
+    def kernel(lf, rf, d0):
+        return fused_block_matching_key(
+            lf, rf, d0, count, total, radius, interpret=interpret
+        )
+
+    def xla(lf, rf, d0):
+        def per_frame(lf, rf):
+            vol = ad_cost_volume_offset(lf, rf, count, d0, invalid_cost)
+            sad = aggregate_cost_volume(vol, radius)  # (count, H, W) int32
+            d_ids = d0 + jnp.arange(count, dtype=jnp.int32)
+            return jnp.min(sad * total + d_ids[:, None, None], axis=0)
+
+        return jax.vmap(per_frame)(lf, rf)
+
+    if interpret:
+        return kernel(left, right, d0)
+    if invalid_cost != INVALID_COST:
+        return xla(left, right, d0)
+    return jax.lax.platform_dependent(left, right, d0, cuda=kernel, default=xla)
+
+
 def block_matching_frame(
     left_gray: jnp.ndarray,
     right_gray: jnp.ndarray,
@@ -116,7 +160,7 @@ def block_matching_frame(
     """Like :func:`block_matching_disparity`, through the fused kernel on
     the GPU when the config allows it (no LR check, which needs the whole
     SAD volume); the median filter runs after it as usual."""
-    if config.lr_consistency or int(config.invalid_cost) != 255:
+    if config.lr_consistency or int(config.invalid_cost) != INVALID_COST:
         return block_matching_disparity(left_gray, right_gray, config)
     disp = sad_wta_disparity(
         left_gray, right_gray, config.num_disparities, config.sad_radius

@@ -24,36 +24,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
-from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching_key
+from gpu_stereo_matching_tpu.models.block_matching import sad_wta_keys
 from gpu_stereo_matching_tpu.ops.aggregate import aggregate_cost_volume
 from gpu_stereo_matching_tpu.ops.cost import ad_cost_volume_offset
 from gpu_stereo_matching_tpu.parallel.halo import extend_with_row_halos
-
-
-def _partial_keys(left, right, d0, count, total, radius, invalid_cost, interpret):
-    """Packed WTA keys ``min_d SAD·total + d`` over ``d0 .. d0+count-1`` for
-    (B, H, W) slabs: the fused kernel on a CUDA device (or in the Pallas
-    interpreter when ``interpret``), the XLA ops path elsewhere."""
-
-    def kernel(lf, rf, d0):
-        return fused_block_matching_key(
-            lf, rf, d0, count, total, radius, interpret=interpret
-        )
-
-    def xla(lf, rf, d0):
-        def per_frame(lf, rf):
-            vol = ad_cost_volume_offset(lf, rf, count, d0, invalid_cost)
-            sad = aggregate_cost_volume(vol, radius)  # (count, H, W) int32
-            d_ids = d0 + jnp.arange(count, dtype=jnp.int32)
-            return jnp.min(sad * total + d_ids[:, None, None], axis=0)
-
-        return jax.vmap(per_frame)(lf, rf)
-
-    if interpret:
-        return kernel(left, right, d0)
-    if invalid_cost != 255:
-        return xla(left, right, d0)
-    return lax.platform_dependent(left, right, d0, cuda=kernel, default=xla)
 
 
 def make_sharded_block_matching(
@@ -80,7 +54,7 @@ def make_sharded_block_matching(
         lex = extend_with_row_halos(left, radius, "space")
         rex = extend_with_row_halos(right, radius, "space")
         d0 = lax.axis_index("disp") * d_per_shard
-        key = _partial_keys(
+        key = sad_wta_keys(
             lex, rex, d0, d_per_shard, num_d, radius,
             int(config.invalid_cost), interpret,
         )

@@ -88,19 +88,3 @@ def enable_jit_cache() -> None:
         jax.config.update("jax_compilation_cache_dir", jit_cache_dir())
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
-
-PARALLEL_GPU_CODEGEN = "--xla_gpu_enable_llvm_module_compilation_parallelism=true"
-
-
-def enable_parallel_gpu_codegen() -> None:
-    """Let XLA generate a GPU program's kernels on all host cores.
-
-    The segment-tree programs hold about two thousand fused kernels, and
-    their GPU compile takes minutes when the kernels are generated one
-    after another. The flag goes into ``XLA_FLAGS``, so call this before
-    JAX creates its GPU backend; a value already in ``XLA_FLAGS`` wins.
-    """
-    flags = os.environ.get("XLA_FLAGS", "")
-    name = PARALLEL_GPU_CODEGEN.split("=")[0]
-    if name not in flags:
-        os.environ["XLA_FLAGS"] = f"{flags} {PARALLEL_GPU_CODEGEN}".strip()

@@ -17,6 +17,7 @@ from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu.models.block_matching import (
     block_matching_pipeline,
     sad_wta_disparity,
+    sad_wta_keys,
 )
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -26,9 +27,14 @@ def _selector(l, r):
     return sad_wta_disparity(l, r, 16, 2)
 
 
-def test_selector_lowers_to_kernel_for_cuda():
+def _keys_selector(l, r):
+    return sad_wta_keys(l, r, 0, 16, 16, 2)
+
+
+@pytest.mark.parametrize("selector", [_selector, _keys_selector])
+def test_selector_lowers_to_kernel_for_cuda(selector):
     x = jax.ShapeDtypeStruct((2, 40, 96), jnp.uint8)
-    text = jax.jit(_selector).trace(x, x).lower(lowering_platforms=("cuda",)).as_text()
+    text = jax.jit(selector).trace(x, x).lower(lowering_platforms=("cuda",)).as_text()
     assert "sad_wta" in text
 
 
@@ -139,12 +145,17 @@ def test_synthetic_scene_shapes_and_ground_truth():
     assert bad_pixel_rate(s.disparity, s) == 0.0
 
 
-def test_chip_smoke_result_line_refuses_non_gpu():
+def _chip_smoke():
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
     finally:
         sys.path.remove(REPO)
+    return chip_smoke
+
+
+def test_chip_smoke_result_line_refuses_non_gpu():
+    chip_smoke = _chip_smoke()
     line = chip_smoke.result_line("gpu", "NVIDIA H100 80GB HBM3", 1)
     assert line == (
         '{"ok": true, "device": {"platform": "gpu", '
@@ -152,3 +163,70 @@ def test_chip_smoke_result_line_refuses_non_gpu():
     )
     with pytest.raises(RuntimeError):
         chip_smoke.result_line("cpu", "cpu", 1)
+
+
+def test_sad_wta_keys_other_invalid_cost_stays_on_xla():
+    x = jax.ShapeDtypeStruct((2, 40, 96), jnp.uint8)
+    fn = jax.jit(lambda l, r: sad_wta_keys(l, r, 0, 16, 16, 2, invalid_cost=200))
+    text = fn.trace(x, x).lower(lowering_platforms=("cuda",)).as_text()
+    assert "sad_wta" not in text
+
+
+@pytest.mark.parametrize(
+    "preset, want",
+    [
+        (None, "--xla_gpu_enable_llvm_module_compilation_parallelism=true"),
+        (
+            "--xla_gpu_enable_llvm_module_compilation_parallelism=false",
+            "--xla_gpu_enable_llvm_module_compilation_parallelism=false",
+        ),
+    ],
+)
+def test_package_import_sets_parallel_gpu_codegen(preset, want):
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    if preset is not None:
+        env["XLA_FLAGS"] = preset
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    code = (
+        "import os, gpu_stereo_matching_tpu\n"
+        "print(os.environ['XLA_FLAGS'])\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        check=True, timeout=120,
+    )
+    assert out.stdout.strip() == want
+
+
+def test_sad_roofline_counts_the_shipped_tile():
+    from gpu_stereo_matching_tpu.bench.roofline import (
+        fused_sad_roofline,
+        sad_wta_ops_per_pixel_disparity,
+    )
+    from gpu_stereo_matching_tpu.kernels.sad_wta import TILES
+
+    kind = "NVIDIA H100 80GB HBM3"
+    default = fused_sad_roofline(1080, 1920, 64, 5, 1.0, kind)
+    explicit = fused_sad_roofline(1080, 1920, 64, 5, 1.0, kind, TILES["block_w"])
+    assert default == explicit
+    # r=5: 16-wide left-of-strip window; at block_w=16 two extra AD costs.
+    assert sad_wta_ops_per_pixel_disparity(5, 16) == 6 * 10 + 4 + 2 + 8 + 5
+    assert sad_wta_ops_per_pixel_disparity(5, 64) < sad_wta_ops_per_pixel_disparity(5, 16)
+
+
+def test_chip_smoke_counts_executables_until_steady():
+    chip_smoke = _chip_smoke()
+    executables = chip_smoke.Executables()
+    shapes = iter([(3,), (4,), (4,), (4,)])
+    fn = jax.jit(lambda x: x * 2 + 1)
+
+    calls = chip_smoke.until_steady(
+        "test", executables, lambda: fn(jnp.ones(next(shapes))).block_until_ready()
+    )
+    assert calls == 3  # two shapes compile, the third call builds nothing
+    with pytest.raises(AssertionError, match="still compiling"):
+        chip_smoke.until_steady(
+            "test", executables,
+            lambda: jax.jit(lambda x: x - 1)(jnp.ones(2)).block_until_ready(),
+            limit=2,
+        )
